@@ -25,12 +25,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, ".")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 from gpu_radix_sort_tpu.data import FileArrayFactory, create_shape  # noqa: E402
 from gpu_radix_sort_tpu.parallel import (  # noqa: E402
     BucketReader,
@@ -81,12 +83,15 @@ def payload_for(keys: np.ndarray, idx0: int, payload_bytes: int,
 
 
 def main():
+    from gpu_radix_sort_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1 << 30)
     ap.add_argument("--payload-bytes", type=int, default=0)
     ap.add_argument("--width", type=int, default=8)
     ap.add_argument("--nworker", type=int, default=1)
-    ap.add_argument("--mount", default="/root/ooc_mount")
+    ap.add_argument("--mount", default=os.path.join(REPO, "ooc_mount"))
     ap.add_argument("--name", default="ooc")
     ap.add_argument(
         "--parallel-workers", action="store_true",

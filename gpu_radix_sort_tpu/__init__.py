@@ -1,10 +1,10 @@
-"""gpu_radix_sort_tpu — a TPU-native sort-execution framework.
+"""gpu_radix_sort_tpu — a JAX sort-execution framework for GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of
+A from-scratch JAX/XLA re-design of the capability surface of
 jssmith/gpu-radix-sort (CUDA libsort + Go distributed radix sort + FaaS
 workers): single-chip full/partial radix sort with group boundaries,
 a pluggable distributed-array data plane, bulk-synchronous distributed
-sort over a device mesh with ICI all-to-all bucket exchange, pluggable
+sort over a device mesh with all-to-all bucket exchange, pluggable
 in-process/subprocess workers, key-value (payload) sort, skew-aware
 partitioning, and a layered benchmark/profiling harness.
 """

@@ -86,6 +86,11 @@ def _cmd_sort(args) -> int:
         cfg = SortConfig.from_env(**explicit).validate()
         from .parallel.storage_sort import sort_distrib_from_raw
 
+        if cfg.worker != "local":
+            print(f"{cfg.worker} workers: {cfg.nworker} processes on the "
+                  "CPU (platform='cpu'); GPU workers are pinned one per card "
+                  "through parallel.serverless", file=sys.stderr)
+
         got = sort_distrib_from_raw(
             keys, "cli", cfg.make_factory(), cfg.make_worker(),
             width=cfg.width, nworker=cfg.nworker,
@@ -259,6 +264,7 @@ def _cmd_selftest(args) -> int:
     )
 
     if args.subprocess:
+        print("  (subprocess workers run on the CPU: platform='cpu')")
         with tempfile.TemporaryDirectory() as mount:
             check(
                 "storage sort (file, subprocess)",
@@ -277,7 +283,7 @@ def _cmd_selftest(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gpu_radix_sort_tpu",
-        description="TPU-native distributed sort framework",
+        description="JAX distributed sort framework",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -330,7 +336,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from .utils.cache import enable_compile_cache
+
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -1,6 +1,6 @@
 """Distributed data plane: named arrays of append-only byte partitions.
 
-TPU-framework mirror of the reference's DistribArray abstraction
+Mirror of the reference's DistribArray abstraction
 (benchmark/pkg/data/, faasTest/pylibsort/data.py) with three backends:
 memory (in-process), file (on-disk, reference-compatible format, the
 subprocess-worker wire protocol), and device (HBM-resident, novel).

@@ -1,1 +1,1 @@
-from . import bits, boundaries, radix_sort, pallas_sort, pallas_radix  # noqa: F401
+from . import bits, boundaries, radix_sort  # noqa: F401

@@ -37,7 +37,7 @@ def extract_digits(keys: jnp.ndarray, offset: int, width: int) -> jnp.ndarray:
 def rotr32(x: jnp.ndarray, s: int) -> jnp.ndarray:
     """Static cyclic right-rotation of uint32 bit patterns (s mod 32).
 
-    The rotated-value LSD trick's workhorse (docs/PERF_NOTES.md): round k's
+    The rotated-value LSD trick's workhorse: round k's
     required order (digit_k, bits [0, k*w), high bits) is the plain
     ascending order of rotr(x, (k+1)*w) — a pure value function, so the
     round sort is keys-only.  Shared by the mesh loop

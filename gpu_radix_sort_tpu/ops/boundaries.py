@@ -30,8 +30,7 @@ def true_group_starts(
 ) -> jnp.ndarray:
     """s[g] = first index where group g would start, for g in 0..2^width
     (s[2^width] = n).  Exact start positions via binary search — O(D log n),
-    no scatter (XLA scatter runs at ~100M elem/s on TPU, see
-    docs/PERF_NOTES.md)."""
+    no scatter."""
     validate_digit_range(offset, width)
     nb = 1 << width
     d = extract_digits(sorted_keys, offset, width)
@@ -79,7 +78,7 @@ def compute_boundaries(
 
 
 def digit_counts(keys: jnp.ndarray, offset: int, width: int) -> jnp.ndarray:
-    """Exact per-digit counts (int32[2^width]).  The TPU-native bucket
+    """Exact per-digit counts (int32[2^width]).  The bucket
     metadata used by the distributed exchange; replaces
     boundaries->sizes derivation (benchmark/pkg/sort/distrib.go:45-53)."""
     validate_digit_range(offset, width)
@@ -91,7 +90,7 @@ def digit_counts_sorted(
     sorted_keys: jnp.ndarray, offset: int, width: int
 ) -> jnp.ndarray:
     """Per-digit counts of already-digit-sorted keys via searchsorted diff —
-    scatter-free (bincount lowers to scatter-add, slow on TPU)."""
+    scatter-free (bincount lowers to a scatter-add)."""
     s = true_group_starts(sorted_keys, offset, width)
     return (s[1:] - s[:-1]).astype(jnp.int32)
 

@@ -10,11 +10,11 @@ Capability mirror of the reference C ABI (libsort/invokers.cu):
     implementation detail of the strategy.
 
 Strategies (selected per call or via set_default_strategy):
-  * ``"xla"``    — XLA's native sort (lax.sort / lax.sort_key_val).  Always
-    available, every backend; the correctness anchor.
-  * ``"pallas"`` — hand-written Pallas TPU kernels (ops/pallas_sort.py):
-    tile histogram + grid scan + run-coalesced scatter.
-  * ``"auto"``   — pallas on TPU when supported for the shape, else xla.
+  * ``"xla"``  — XLA's native sort (lax.sort / lax.sort_key_val).  On a GPU,
+    XLA hands one-operand sorts and plain key+value pair sorts to CUB's
+    radix sort; other sorts run XLA's own sort kernel.
+  * ``"auto"`` — the default; today the same as ``"xla"``.  It is the hook
+    a hand-written kernel would be chosen through once one beats XLA.
 
 All entry points are pure functions safe under jit/vmap/shard_map; nothing
 here reserves devices (the reference's semaphore+CAS device reservation,
@@ -30,13 +30,29 @@ from .bits import KEY_DTYPE, extract_digits, validate_digit_range
 from .boundaries import compute_boundaries
 
 _DEFAULT_STRATEGY = "auto"
-_VALID = ("auto", "xla", "pallas", "pallas_radix")
+_VALID = ("auto", "xla")
+# Strategy names of removed kernels: asking for one is an error, never a
+# silent fallback to another engine.
+REMOVED_STRATEGIES = ("pallas", "pallas_merge", "pallas_radix")
 
-# Payload lanes narrower than this ride XLA sorts as extra operands (XLA
-# sort moves rows at multi-G/s; a permutation gather runs at ~100M elem/s —
-# docs/PERF_NOTES.md).  Wider payloads fall back to the gather: sort compile
-# time grows steeply with operand count (16 lanes measured at 5+ min).
+# Payload lanes up to this many ride XLA sorts as extra operands; wider
+# payloads are permuted by rank-keyed lane-group sorts.  Which of the two
+# (or a plain gather) is fastest on the GPU is not measured yet.
 MAX_SORT_LANES = 4
+
+
+def check_strategy(name: str | None) -> str:
+    """``name`` (None = the default) if it is a valid strategy, else a
+    ValueError that says whether it names a removed kernel."""
+    name = name or _DEFAULT_STRATEGY
+    if name in REMOVED_STRATEGIES:
+        raise ValueError(
+            f"strategy {name!r} named a Pallas kernel that has been removed; "
+            f"use one of {_VALID}"
+        )
+    if name not in _VALID:
+        raise ValueError(f"strategy must be one of {_VALID}, got {name!r}")
+    return name
 
 
 def _lanes_view(values: jnp.ndarray) -> jnp.ndarray | None:
@@ -71,12 +87,8 @@ def _permute_lanes_grouped(
     """Apply a permutation to (n, W) uint32 lanes via grouped lane-riding
     sorts: lane groups of MAX_SORT_LANES ride ``lax.sort`` keyed by each
     row's destination rank.  ``rank`` must be a permutation of [0, n)
-    (all-distinct keys, so an unstable sort is exact).
-
-    This replaces the wide-payload permutation gather: XLA gather moves
-    ~100M elem/s while the sort network moves whole rows at multi-G/s
-    (docs/PERF_NOTES.md) — for W lanes the cost is ceil(W/4) sorts instead
-    of an n*W-element gather."""
+    (all-distinct keys, so an unstable sort is exact).  For W lanes the
+    cost is ceil(W/4) sorts instead of an n*W-element gather."""
     out_cols: list[jnp.ndarray] = []
     for g0 in range(0, lanes.shape[1], MAX_SORT_LANES):
         cols = tuple(
@@ -89,48 +101,24 @@ def _permute_lanes_grouped(
 
 
 def _invert_permutation(order: jnp.ndarray) -> jnp.ndarray:
-    """rank[j] = position of j in ``order`` — scatter-free (one u32 sort)."""
+    """rank[j] = position of j in ``order``: one scatter with unique
+    indices.  (XLA's GPU compiler rewrites the equivalent sort of
+    (order, iota) into this scatter, and with uint32 operands the rewrite
+    fails its own HLO verifier.)"""
     n = order.shape[0]
     iota = jnp.arange(n, dtype=jnp.uint32)
-    _, rank = jax.lax.sort_key_val(order, iota, is_stable=False)
-    return rank
+    return jnp.zeros(n, jnp.uint32).at[order].set(
+        iota, unique_indices=True, mode="promise_in_bounds"
+    )
 
 
 def set_default_strategy(name: str) -> None:
     global _DEFAULT_STRATEGY
-    if name not in _VALID:
-        raise ValueError(f"strategy must be one of {_VALID}, got {name!r}")
-    _DEFAULT_STRATEGY = name
+    _DEFAULT_STRATEGY = check_strategy(name)
 
 
 def get_default_strategy() -> str:
     return _DEFAULT_STRATEGY
-
-
-def _resolve(
-    strategy: str | None, n: int, kind: str = "full",
-    kind_width: int | None = None,
-) -> str:
-    name = strategy or _DEFAULT_STRATEGY
-    if name not in _VALID:
-        raise ValueError(f"strategy must be one of {_VALID}, got {name!r}")
-    if name == "auto":
-        from . import pallas_sort
-
-        if pallas_sort.supported(n, kind):
-            return "pallas"
-        if kind == "full":
-            from . import pallas_merge
-
-            if pallas_merge.supported_auto(n):
-                return "pallas_merge"
-        if kind == "kv":
-            from . import pallas_radix
-
-            if pallas_radix.supported_auto(n, kind_width or 32):
-                return "pallas_radix"
-        return "xla"
-    return name
 
 
 # ---------------------------------------------------------------------------
@@ -141,15 +129,18 @@ def _sort_full_xla(keys: jnp.ndarray) -> jnp.ndarray:
     return jnp.sort(keys.astype(KEY_DTYPE))
 
 
-def _sort_partial_xla(keys: jnp.ndarray, offset: int, width: int) -> jnp.ndarray:
-    digits = extract_digits(keys, offset, width)
+def _narrow_digits(digits: jnp.ndarray, width: int) -> jnp.ndarray:
+    """Digit keys in the narrowest unsigned type that holds ``width`` bits:
+    a u8/u16 sort key moves fewer bytes per radix pass and per compare."""
     if width <= 8:
-        # u8 digit keys sort 1.23x faster than u32 through lax.sort
-        # (half the comparison bandwidth) and shrink peak sort memory 40%
-        # — the 2^30-keys-per-worker out-of-core regime needs that room.
-        digits = digits.astype(jnp.uint8)
-    elif width <= 16:
-        digits = digits.astype(jnp.uint16)
+        return digits.astype(jnp.uint8)
+    if width <= 16:
+        return digits.astype(jnp.uint16)
+    return digits
+
+
+def _sort_partial_xla(keys: jnp.ndarray, offset: int, width: int) -> jnp.ndarray:
+    digits = _narrow_digits(extract_digits(keys, offset, width), width)
     _, sorted_keys = jax.lax.sort_key_val(
         digits, keys.astype(KEY_DTYPE), is_stable=True
     )
@@ -173,26 +164,7 @@ def sort_full(keys: jnp.ndarray, *, strategy: str | None = None) -> jnp.ndarray:
         return decode_ordered(
             sort_full(encode_ordered(keys), strategy=strategy), keys.dtype
         )
-    name = _resolve(strategy, keys.shape[0])
-    if name == "pallas":
-        from . import pallas_merge, pallas_sort
-
-        if keys.shape[0] > pallas_sort.MAX_N:
-            return pallas_merge.sort_full_large(keys)
-        return pallas_sort.sort_full(keys)
-    if name == "pallas_merge":
-        from . import pallas_merge
-
-        return pallas_merge.sort_full_large(keys)
-    if strategy == "pallas_radix":
-        # Mirror sort_by_digits: an explicit request must not silently run
-        # a different engine.  8x4-bit binning passes lose to the merge
-        # path for full sorts (measured, docs/PERF_NOTES.md round-2) so no
-        # full-sort engine path exists.
-        raise NotImplementedError(
-            "strategy='pallas_radix' covers partial/digit sorts; use "
-            "'pallas' or 'auto' for full sorts"
-        )
+    check_strategy(strategy)
     return _sort_full_xla(keys)
 
 
@@ -210,9 +182,8 @@ def _sort_by_digits_rotated(
     slow).  Within a digit group the order is the ROTATED-VALUE order
     (deterministic, value-pure), not the input order — the same
     rotated-value identity the fused LSD rounds ride
-    (parallel/distributed._fused_sort_shard).  Keys-only full sorts run
-    ~3x the stable digit kv-sort rate at reference scale on this hardware
-    (docs/PERF_NOTES.md), which is the whole point of offering it.
+    (parallel/distributed._fused_sort_shard).  It is offered because a
+    keys-only full sort moves fewer bytes than a stable digit pair sort.
     """
     from .bits import rotr32
 
@@ -235,22 +206,9 @@ def sort_by_digits(
     rotated-value order) via a keys-only full sort of the digit-rotated
     word — see :func:`_sort_by_digits_rotated`."""
     validate_digit_range(offset, width)
+    check_strategy(strategy)
     if not stable:
         return _sort_by_digits_rotated(keys, offset, width, strategy)
-    name = _resolve(strategy, keys.shape[0], "kv", width)
-    if name == "pallas":
-        from . import pallas_sort
-
-        try:
-            return pallas_sort.sort_by_digits(keys, offset, width)
-        except NotImplementedError:
-            if strategy == "pallas":
-                raise  # explicit request: surface the capability limit
-            return _sort_partial_xla(keys, offset, width)  # auto fallback
-    if name == "pallas_radix":
-        from . import pallas_radix
-
-        return pallas_radix.sort_by_digits_large(keys, offset, width)
     return _sort_partial_xla(keys, offset, width)
 
 
@@ -264,7 +222,7 @@ def sort_partial(
     uint32[2^width] with the exact semantics of the reference C ABI
     (invokers.cu:15 + sort.cu:367-394, empty-group backfill included).
     ``stable=False`` relaxes within-group order to the reference's own
-    checked contract for a ~3x rate at scale (see :func:`sort_by_digits`);
+    checked contract (see :func:`sort_by_digits`);
     boundaries are order-independent, so they are identical either way.
     """
     sorted_keys = sort_by_digits(
@@ -280,7 +238,7 @@ def sort_partial_counts(
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Partial sort + exact per-digit counts (int32[2^width]).
 
-    TPU-native variant used by the distributed path: counts come from the
+    Variant used by the distributed path: counts come from the
     histogram, avoiding the reference boundary contract's empty-group-0/1
     quirks and keeping bucket metadata exact.  ``stable`` as in
     :func:`sort_partial`.
@@ -289,8 +247,7 @@ def sort_partial_counts(
     sorted_keys = sort_by_digits(
         keys, offset, width, strategy=strategy, stable=stable
     )
-    # counts from the sorted runs (searchsorted diffs): scatter-free,
-    # unlike a bincount over the unsorted keys (docs/PERF_NOTES.md).
+    # counts from the sorted runs (searchsorted diffs) — no scatter.
     from .boundaries import digit_counts_sorted
 
     return sorted_keys, digit_counts_sorted(sorted_keys, offset, width)
@@ -318,6 +275,7 @@ def sort_key_value(
             encode_ordered(keys), values, strategy=strategy
         )
         return decode_ordered(sk, keys.dtype), sv
+    check_strategy(strategy)
     keys = keys.astype(KEY_DTYPE)
     if values.shape[0] != keys.shape[0]:
         raise ValueError(
@@ -329,8 +287,7 @@ def sort_key_value(
         )
         return sorted_keys, sorted_vals
     # Payloads up to MAX_SORT_LANES uint32 lanes ride the sort as extra
-    # operands — XLA moves whole rows through the sort network, bypassing
-    # the ~100M elem/s permutation gather entirely.
+    # operands: the sort moves whole rows, with no permutation gather.
     lanes = _lanes_view(values)
     if lanes is not None and 0 < lanes.shape[1] <= MAX_SORT_LANES:
         cols = tuple(lanes[:, w] for w in range(lanes.shape[1]))
@@ -358,49 +315,11 @@ def sort_key_value_by_digits(
     strategy: str | None = None,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Stable partial (digit) sort of (key, value) rows.  Narrow payloads
-    ride the digit sort as operands (see :func:`sort_key_value`).
-
-    Strategy "auto" (default): single u32-width payloads at engine scale
-    route to the Pallas radix binning engine's kv lanes — measured 2.31x
-    XLA at width 4 / 64M pairs, 1.12x as two subpasses at width 8
-    (docs/BENCH_R3.md); everything else stays on the XLA operand-riding
-    sort.  Pass strategy="xla" to pin the XLA path."""
+    ride the digit sort as operands (see :func:`sort_key_value`)."""
     validate_digit_range(offset, width)
+    check_strategy(strategy)
     keys = keys.astype(KEY_DTYPE)
-    if strategy not in (None, "auto", "xla", "pallas_radix"):
-        raise ValueError(
-            f"strategy must be None/'auto'/'xla'/'pallas_radix', got {strategy!r}"
-        )
-    kv_lane = (
-        values.ndim == 1
-        and values.dtype.itemsize == 4
-        and values.dtype.kind in "uif"
-    )
-    if strategy == "pallas_radix" and not kv_lane:
-        # an explicit engine request must not silently run a different
-        # engine (same contract as sort_full's strategy handling)
-        raise NotImplementedError(
-            "strategy='pallas_radix' kv lanes require a 1-D 4-byte value "
-            f"column; got shape {values.shape} dtype {values.dtype} — use "
-            "strategy='xla'/'auto' for wide or non-4-byte payloads"
-        )
-    if strategy != "xla" and kv_lane:
-        from . import pallas_radix
-
-        if strategy == "pallas_radix" or pallas_radix.supported_auto_kv(
-            keys.shape[0], width
-        ):
-            col = values.view(jnp.uint32) if values.dtype != jnp.uint32 \
-                else values
-            sk, (sv,) = pallas_radix.sort_key_value_by_digits_large(
-                keys, (col,), offset, width
-            )
-            return sk, sv.view(values.dtype)
-    digits = extract_digits(keys, offset, width)
-    if width <= 8:  # same measured u8/u16 downcast as _sort_partial_xla
-        digits = digits.astype(jnp.uint8)
-    elif width <= 16:
-        digits = digits.astype(jnp.uint16)
+    digits = _narrow_digits(extract_digits(keys, offset, width), width)
     if values.ndim == 1 and values.dtype.itemsize <= 4:
         _, sk, sv = jax.lax.sort((digits, keys, values), num_keys=1,
                                  is_stable=True)

@@ -3,13 +3,12 @@
 The north-star capability set extends the reference's keys-only sort with
 the relational steps its distributed design composes with (BASELINE.json:
 "radix hash-partition -> filter -> aggregate ... with sampled splitters").
-The reference itself has none of these; designs here are TPU-first:
+The reference itself has none of these; designs here are:
 
   * static shapes everywhere — "filter" returns a packed array + valid
     count (tail padded), never a dynamic-size array;
-  * data movement rides the sort machinery (stable key-value sort), since
-    XLA sort is the only fast permutation primitive on TPU
-    (docs/PERF_NOTES.md: gather/scatter ~100M elem/s, sort ~2.6G row/s);
+  * data movement rides the sort machinery (stable key-value sort) rather
+    than gathers and scatters;
   * aggregation is segment math over sorted runs, not scatter-adds.
 
 All functions are jit/vmap/shard_map-safe.
@@ -27,7 +26,7 @@ from .bits import KEY_DTYPE
 # Fibonacci multiplicative hashing: odd constant ≈ 2^32/phi; bijective on
 # uint32 (odd multiplier), avalanche-boosted by the xor-shift.
 # numpy scalar, NOT jnp: module-scope jax arrays initialize the
-# backend at import (see ops/pallas_sort.PAD).
+# backend at import.
 _HASH_MULT = np.uint32(2654435769)
 
 
@@ -65,8 +64,8 @@ def partition_by_ids(
         part_ids.astype(jnp.uint32), keys.astype(KEY_DTYPE), is_stable=True
     )
     # counts via searchsorted diffs over the already-sorted ids — scatter-
-    # free (bincount lowers to scatter-add, ~120M elem/s on TPU) and reuses
-    # the sort this function just paid for.
+    # free (bincount lowers to a scatter-add) and reuses the sort this
+    # function just paid for.
     queries = jnp.arange(nparts + 1, dtype=jnp.uint32)
     starts = jnp.searchsorted(sorted_ids, queries, side="left")
     counts = (starts[1:] - starts[:-1]).astype(jnp.int32)
@@ -87,8 +86,8 @@ def compact(
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Filter with static shapes: stable-pack elements where ``mask`` is
     True to the front, preserving order; returns (packed, count).  Elements
-    past ``count`` are unspecified.  This is the TPU filter idiom — a
-    dynamic-size result would defeat jit."""
+    past ``count`` are unspecified.  A dynamic-size result would defeat
+    jit."""
     packed, count = pack_by_mask(mask, values)
     return packed, count
 
@@ -117,10 +116,8 @@ def group_aggregate_sorted(
     scatter-free: per-segment aggregates are read off at run ENDS — integer
     sums as cumsum differences (exact under modular wraparound), min/max
     via a segmented associative scan — and one multi-operand pack sort
-    moves (key, aggregate) pairs to the front together.  The round-2
-    design's jax.ops.segment_* lowered to scatter-adds (~120M elem/s on
-    TPU, docs/PERF_NOTES.md) plus a second pack sort for the keys; float
-    sums keep segment_sum so their rounding order is unchanged.
+    moves (key, aggregate) pairs to the front together.  Float sums keep
+    segment_sum (a scatter-add) so their rounding order is unchanged.
     ``values=None`` with op="sum"/"count" aggregates 1s.
     """
     if op not in VALID_AGG_OPS:

@@ -3,6 +3,7 @@ from .distributed import build_distributed_sort, sort_distributed  # noqa: F401
 from .mesh import key_mesh, host_chip_mesh  # noqa: F401
 from .sample_sort import (  # noqa: F401
     build_sample_sort,
+    build_sample_sort_64,
     build_sample_sort_kv,
     build_sample_sort_kv64,
     sort_distributed_64,

@@ -7,8 +7,9 @@ SPMD:
 
   * workers     -> mesh shards (shard_map over axis "x"); nworker is the
                    mesh size, not a hard-coded 2 (distrib.go:107).
-  * repartition -> ICI all-to-all (parallel/exchange.py) instead of the
-                   STRIDED BucketReader over a shared filesystem.
+  * repartition -> an all-to-all collective (parallel/exchange.py; XLA
+                   hands it to NCCL on GPUs) instead of the STRIDED
+                   BucketReader over a shared filesystem.
   * bucket metadata -> device arrays exchanged by all-gather, not JSON.
 
 Round invariant: after round r the global array (in shard-major linear
@@ -33,12 +34,25 @@ from jax import shard_map
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from ..ops.bits import KEY_BITS, rotr32 as _rotr32
+from ..ops.radix_sort import check_strategy
 from . import exchange as ex
 from .mesh import KEY_AXIS, key_mesh
 
-_VALID_EXCHANGE = (
-    "auto", "alltoall", "overflow", "gather", "rdma", "rdma_overlap"
-)
+_VALID_EXCHANGE = ("auto", "alltoall", "overflow", "gather")
+# Exchange names of removed remote-DMA kernels: asking for one is an
+# error, never a silent fallback to another exchange.
+REMOVED_EXCHANGES = ("rdma", "rdma_overlap")
+
+
+def check_exchange(exchange: str) -> str:
+    if exchange in REMOVED_EXCHANGES:
+        raise ValueError(
+            f"exchange {exchange!r} named a remote-DMA kernel that has been "
+            f"removed; use one of {_VALID_EXCHANGE}"
+        )
+    if exchange not in _VALID_EXCHANGE:
+        raise ValueError(f"exchange must be one of {_VALID_EXCHANGE}")
+    return exchange
 
 
 def _round_fn(local_keys, *, offset, width, axis, exchange, capacity, strategy):
@@ -50,18 +64,6 @@ def _round_fn(local_keys, *, offset, width, axis, exchange, capacity, strategy):
         c0, c_ov = capacity
         return ex.exchange_round_alltoall_overflow(
             local_keys, offset, width, axis, c0, c_ov, strategy=strategy
-        )
-    if exchange == "rdma":
-        from .rdma_exchange import exchange_round_rdma
-
-        return exchange_round_rdma(
-            local_keys, offset, width, axis, strategy=strategy
-        )
-    if exchange == "rdma_overlap":
-        from .rdma_overlap import exchange_round_rdma_overlapped
-
-        return exchange_round_rdma_overlapped(
-            local_keys, offset, width, axis, tile=capacity
         )
     return ex.exchange_round_alltoall(
         local_keys, offset, width, axis, capacity, strategy=strategy
@@ -77,10 +79,6 @@ def _exchange_raw(sorted_local, *, offset, width, axis, exchange, capacity):
         return ex.exchange_round_alltoall_overflow_raw(
             sorted_local, offset, width, axis, c0, c_ov
         )
-    if exchange == "rdma":
-        from .rdma_exchange import exchange_round_rdma_raw
-
-        return exchange_round_rdma_raw(sorted_local, offset, width, axis)
     return ex.exchange_round_alltoall_raw(
         sorted_local, offset, width, axis, capacity
     )
@@ -104,9 +102,8 @@ def _fused_sort_shard(local_keys, *, width, axis, exchange, capacity,
     subsequent round sorts by value alone.  Two wins over the composite
     formulation it replaces:
 
-      * the per-round sort is keys-only, so it rides the Pallas merge
-        engine (~4x lax.sort_key_val at production shard sizes) through
-        the normal sort_full strategy dispatch;
+      * the per-round sort is keys-only (one sort_full, which XLA hands
+        to CUB's radix sort on GPUs) instead of a pair sort;
       * no composite bit budget — any width dividing 32 fuses, including
         16 (the composite needed 2*width+1 <= 32).
 
@@ -158,7 +155,6 @@ def build_distributed_sort(
     capacity_factor: float = 1.25,
     strategy: str | None = None,
     axis: str = KEY_AXIS,
-    overlap_tile: int | None = None,
     fuse_rounds: bool | None = None,
 ):
     """Compile-ready distributed full sort.
@@ -168,7 +164,7 @@ def build_distributed_sort(
     loop is the reference's ``nstep = 32/width`` structure
     (distrib.go:109-176) with the exchange fused into each round.
 
-    ``fuse_rounds`` (default auto: on for the alltoall / overflow / rdma
+    ``fuse_rounds`` (default auto: on for the alltoall / overflow
     exchanges, any width) collapses each round's reassembly sort and the
     next round's local digit sort into one keys-only rotated-value sort —
     see :func:`_fused_sort_shard`.  Output is bit-identical either way.
@@ -179,52 +175,23 @@ def build_distributed_sort(
         raise ValueError(
             f"width {width} must divide {KEY_BITS} and be <= 16"
         )
-    if exchange not in _VALID_EXCHANGE:
-        raise ValueError(f"exchange must be one of {_VALID_EXCHANGE}")
+    check_exchange(exchange)
+    check_strategy(strategy)
     nchips = mesh.shape[axis]
     if exchange == "auto":
         # gather is exact and fastest for small shards; alltoall scales.
         exchange = "gather" if n_local * nchips <= (1 << 20) else "alltoall"
     if exchange == "overflow":
         capacity = ex.overflow_capacities(n_local, nchips)
-    elif exchange == "rdma":
-        from ..ops.pallas_sort import LANES
-
-        capacity = None
-        if n_local % LANES:
-            raise ValueError(
-                f"exchange='rdma' needs n_local ({n_local}) to be a "
-                f"multiple of {LANES} (DMA row granularity)"
-            )
-    elif exchange == "rdma_overlap":
-        from .rdma_overlap import MAX_WIDTH as _OV_MAX_W, pick_tile
-
-        if width > _OV_MAX_W:
-            raise ValueError(
-                f"exchange='rdma_overlap' supports width <= {_OV_MAX_W}"
-            )
-        capacity = overlap_tile or pick_tile(n_local)  # group tile size
     else:
         capacity = ex.default_capacity(n_local, nchips, capacity_factor)
     nsteps = KEY_BITS // width
     if fuse_rounds is None:
-        # strategy='pallas_radix' names the DIGIT-sort engine, which only
-        # the unfused loop's sort_by_digits rounds can honor (the fused
-        # loop's rotated-value sorts are keys-only full sorts).
-        fuse_rounds = (
-            exchange in ("alltoall", "overflow", "rdma")
-            and strategy != "pallas_radix"
-        )
-    elif fuse_rounds and exchange not in ("alltoall", "overflow", "rdma"):
+        fuse_rounds = exchange in ("alltoall", "overflow")
+    elif fuse_rounds and exchange not in ("alltoall", "overflow"):
         raise ValueError(
-            "fuse_rounds requires exchange in ('alltoall', 'overflow', "
-            f"'rdma'); got exchange={exchange!r}"
-        )
-    elif fuse_rounds and strategy == "pallas_radix":
-        raise ValueError(
-            "fuse_rounds=True is incompatible with strategy='pallas_radix' "
-            "(fused rounds are keys-only full sorts; the binning engine "
-            "serves digit sorts) — drop fuse_rounds or the strategy pin"
+            "fuse_rounds requires exchange in ('alltoall', 'overflow'); "
+            f"got exchange={exchange!r}"
         )
 
     if fuse_rounds:
@@ -254,18 +221,11 @@ def build_distributed_sort(
                 overflow = overflow + ovf.astype(jnp.int32)
             return local_keys, lax.psum(overflow, axis)
 
-    # check_vma=False for every exchange: the rdma kernels drop
-    # varying-axis metadata on scalar-prefetch operands in interpret mode
-    # (rdma_exchange.py docstring), and the collective exchanges' local
-    # digit sorts dispatch to Pallas engines at production widths/sizes
-    # (width <= 4, n_local >= 2^22), whose out_shapes carry no vma either
-    # — same caveat as build_sample_sort.
     fn = shard_map(
         sort_shard,
         mesh=mesh,
         in_specs=P(axis),
         out_specs=(P(axis), P()),
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -310,17 +270,6 @@ def sort_distributed(
     keys = np.asarray(keys, dtype=np.uint32)
     n = keys.size
     n_local = max(-(-n // nchips), 1)
-    if exchange == "rdma":
-        from ..ops.pallas_sort import LANES
-
-        n_local = -(-n_local // LANES) * LANES  # DMA row granularity
-    elif exchange == "rdma_overlap":
-        from .rdma_overlap import ALIGN, pick_tile
-        from ..ops.pallas_sort import LANES
-
-        del pick_tile  # tile is re-derived in build_distributed_sort
-        grain = ALIGN * LANES  # minimum group tile (a pow2 divisor exists)
-        n_local = -(-n_local // grain) * grain
     n_pad = n_local * nchips
     if n_pad * 1 >= (1 << 31) and not jax.config.jax_enable_x64:
         raise ValueError(

@@ -1,10 +1,11 @@
 """Bucket exchange: the all-to-all shuffle of one distributed radix round.
 
-TPU-native re-design of the reference's storage-mediated repartition (the
+Re-design of the reference's storage-mediated repartition (the
 STRIDED BucketReader merge + byte-balanced PartRef split,
 benchmark/pkg/sort/helpers.go:67-121 and distrib.go:119-158): bucket
 metadata is exchanged as a small device all-gather and the key payload
-moves over ICI collectives — never through a filesystem, never as JSON.
+moves over device collectives (NCCL on GPUs) — never through a filesystem,
+never as JSON.
 
 Core insight exploited throughout: after a *stable local* digit sort, each
 element's exact global destination index
@@ -41,7 +42,7 @@ from ..ops.boundaries import digit_counts_sorted
 from ..ops.radix_sort import sort_by_digits
 
 # numpy scalar, NOT jnp: a module-scope jax array would initialize the
-# backend at import (see ops/pallas_sort.PAD).
+# backend at import.
 PAD_KEY = np.uint32(0xFFFFFFFF)
 
 
@@ -152,8 +153,7 @@ def exchange_round_alltoall(
     """One distributed digit round over mesh axis ``axis`` (inside
     shard_map).  Returns (new_local_keys, overflowed: bool scalar).
 
-    Entirely scatter/gather-free on the per-element path (XLA
-    gather/scatter run at ~100M elem/s on TPU — docs/PERF_NOTES.md):
+    Entirely scatter/gather-free on the per-element path:
     metadata is (P, D) closed-form math, send buffers are P dynamic
     slices, reassembly is one stable kv-sort.  Requires n_global < 2^31
     unless jax_enable_x64 is set.
@@ -239,8 +239,8 @@ def exchange_round_alltoall_overflow(
     slot ``P * C_ov``, which rides a second collective only.  Counts-first
     metadata is identical to the single-pass exchange; like it, a pair
     exceeding C0 + C_ov is reported as overflow, never silent (north-star
-    "ragged all-to-all": the true Pallas ICI-RDMA ragged transfer is the
-    remaining step — docs/PERF_NOTES.md).
+    "ragged all-to-all": ``lax.ragged_all_to_all``, which needs no capacity
+    padding, is the remaining step).
     """
     sorted_local = sort_by_digits(local_keys, offset, width, strategy=strategy)
     tags, flat, overflowed = exchange_round_alltoall_overflow_raw(

@@ -9,7 +9,9 @@ over:
   * 1D ``("x",)`` mesh — key partitioning across all chips (the reference's
     ``nworker`` data split, distrib.go:107, generalized from 2 to N).
   * 2D ``("host", "chip")`` mesh — hierarchical layout so exchanges can be
-    staged ICI-first (intra-host) before crossing DCN.
+    staged within a host before crossing hosts.  Within one host every
+    device reaches every other at the same rate (NVLink, all to all), so
+    the 1D mesh follows the algorithm alone and assumes no torus.
 """
 
 from __future__ import annotations

@@ -2,10 +2,10 @@
 
 Reference analog: the reference scales past one machine through a shared
 filesystem + FaaS workers (faasTest/README.md, benchmark/pkg/faas) — its
-"cluster" is OpenLambda containers mounting one volume.  The TPU-native
-equivalent is SPMD over a pod slice: every host runs this same program,
-`jax.distributed` coordinates, data-parallel shards live host-local, and
-the exchanges ride ICI within a slice (DCN only between slices).
+"cluster" is OpenLambda containers mounting one volume.  The JAX
+equivalent is SPMD over several processes: every process runs this same
+program, `jax.distributed` coordinates, data-parallel shards live
+process-local, and the exchanges are device collectives (NCCL on GPUs).
 
 What lives here:
   * :func:`initialize_distributed` — env-driven `jax.distributed` bring-up
@@ -21,7 +21,7 @@ What lives here:
 
 The sort/aggregate kernels themselves need no changes: shard_map over the
 mesh compiles identical programs on every host, and the capacity-bounded
-all-to-all lowers to ICI collectives within a slice.  Scaling validation on
+all-to-all lowers to device collectives.  Scaling validation on
 real multi-host hardware is a bench-harness run of the same entry points
 with `initialize_distributed()` called first (BASELINE.json config 4); CI
 validates the SPMD program shape on a virtual device mesh instead
@@ -57,21 +57,12 @@ def initialize_distributed(
     process_id = process_id if process_id is not None else _int_env("JAX_PROCESS_ID")
     if not coordinator and num_processes is None:
         return jax.process_count() > 1  # single-process / autodetected run
-    # Public probe where available (jax >= 0.4.34); otherwise initialize and
-    # treat "already initialized" RuntimeError as success — no private
-    # jax._src symbols (they move between releases).
-    probe = getattr(jax.distributed, "is_initialized", None)
-    already = bool(probe()) if callable(probe) else False
-    if not already:
-        try:
-            jax.distributed.initialize(
-                coordinator_address=coordinator,
-                num_processes=num_processes,
-                process_id=process_id,
-            )
-        except RuntimeError as e:
-            if "already initialized" not in str(e).lower():
-                raise
+    if not jax.distributed.is_initialized():
+        jax.distributed.initialize(
+            coordinator_address=coordinator,
+            num_processes=num_processes,
+            process_id=process_id,
+        )
     return jax.process_count() > 1
 
 

@@ -2,11 +2,9 @@
 
 The reference's distributed algorithm is LSD radix with 32/width bulk-
 synchronous rounds (benchmark/pkg/sort/distrib.go:109); each round costs a
-full local sort plus a full-data exchange.  On TPU the local sort dominates
-(XLA sort is comparison-based, so digit width doesn't reduce its cost —
-docs/PERF_NOTES.md), which makes Parallel Sorting by Regular Sampling the
-right architecture: ONE local sort, ONE splitter-partitioned all-to-all,
-ONE local merge — ~4x less sort work than the width-8 LSD structure, with
+full local sort plus a full-data exchange.  Parallel Sorting by Regular
+Sampling needs ONE local sort, ONE splitter-partitioned all-to-all and ONE
+local merge — ~4x less sort work than the width-8 LSD structure, with
 sampled splitters bounding partition skew (the BASELINE.json requirement).
 
 Phases (inside shard_map over mesh axis "x"):
@@ -54,15 +52,29 @@ from ..ops.bits import KEY_DTYPE
 from .exchange import PAD_KEY, send_windows
 from .mesh import KEY_AXIS, key_mesh
 
-# Payload lanes narrower than this ride XLA sorts as extra operands (fast
-# row movement); wider payloads use permutation gathers — sort compile time
-# grows steeply with operand count (16 lanes measured at 5+ min).
+# Payload lanes up to this many ride XLA sorts as extra operands; wider
+# payloads use permutation gathers.
 from ..ops.radix_sort import MAX_SORT_LANES  # single source of truth
 
 
 # Capacity of one (src chip -> dst chip) transfer slot — same policy as
 # the LSD exchange; one implementation so headroom changes can't drift.
 from .exchange import default_capacity as default_pair_capacity
+
+
+# Reassembly of a removed merge-network kernel: asking for it is an error.
+REMOVED_REASSEMBLIES = ("merge",)
+
+
+def check_reassembly(reassembly: str) -> str:
+    if reassembly in REMOVED_REASSEMBLIES:
+        raise ValueError(
+            f"reassembly {reassembly!r} named a merge-network kernel that "
+            "has been removed; use reassembly='sort'"
+        )
+    if reassembly != "sort":
+        raise ValueError(f"reassembly must be 'sort', got {reassembly!r}")
+    return reassembly
 
 
 def _composite_splitters(s, *, axis, order: str):
@@ -125,65 +137,12 @@ def _self_bypass(send_bounds, send_count, my, P_, capacity):
     return offdiag, overflowed, send_bounds[my], send_bounds[my + 1]
 
 
-def _merge_reassembly(masked, s, self_lo, self_hi, *, capacity, b_out):
-    """Reassembly over PRESORTED runs (VERDICT r3 item 7b): the P received
-    segments are each ascending (contiguous slices of the senders' sorted
-    shards, PAD-masked at the tail) and the bypassed self slice is one
-    rotation away from ascending — so instead of a full sort_full (stage-1
-    network + all merge levels) the buffer runs merge levels from
-    L = run-capacity upward only (ops/pallas_merge.merge_presorted).
-
-    Exactness: keys-only buffer, pads are 0xFFFFFFFF and tie only with
-    identical real keys (the sanctioned sentinel exception); the merge
-    levels' multiset-partition argument covers duplicates.  Measured win
-    deferred to multi-chip hardware (the P=1 self-loop reassembly is
-    degenerate) — this path is flag-gated behind
-    ``build_sample_sort(reassembly="merge")``."""
-    from ..ops import pallas_merge
-
-    P_, n = masked.shape[0], s.shape[0]
-    if b_out is None:
-        b_out = pallas_merge.B_OUT
-    run = max(
-        1 << (max(capacity, 1) - 1).bit_length(),
-        pallas_merge.min_presorted_run(b_out),
-    )
-    # received rows: pad capacity -> run with PAD (rows stay ascending)
-    rows_rx = jnp.concatenate(
-        [masked, jnp.full((P_, run - capacity), PAD_KEY, KEY_DTYPE)], axis=1
-    )
-    # self slice: rotate its valid window to the front (ascending), pad to
-    # a whole number of runs (chunks of a sorted run are sorted runs)
-    self_sorted = jnp.roll(s, -self_lo)
-    count_self = self_hi - self_lo
-    pos = jnp.arange(n, dtype=jnp.int32)
-    self_sorted = jnp.where(pos < count_self, self_sorted, PAD_KEY)
-    n_self = -(-n // run) * run
-    self_rows = jnp.concatenate(
-        [self_sorted, jnp.full((n_self - n,), PAD_KEY, KEY_DTYPE)]
-    )
-    m = P_ + n_self // run
-    m_pad = 1 << (m - 1).bit_length()
-    runs = jnp.concatenate([
-        rows_rx.reshape(-1),
-        self_rows,
-        jnp.full(((m_pad - m) * run,), PAD_KEY, KEY_DTYPE),
-    ])
-    merged = pallas_merge.merge_presorted(runs, run, b_out=b_out)
-    # the valid elements are the smallest `total` of the buffer; everything
-    # the slice drops is PAD or a displaced identical-value real max key
-    return merged[: P_ * capacity + n]
-
-
-def _sample_sort_shard(local_keys, *, axis, capacity, reassembly="sort",
-                       merge_b_out=None):
+def _sample_sort_shard(local_keys, *, axis, capacity):
     P_ = lax.axis_size(axis)
     my = lax.axis_index(axis)
     n = local_keys.shape[0]
 
-    # Strategy-dispatched full sort: at production shard sizes (>= 2^24)
-    # this is the Pallas HBM merge engine (557M keys/s — docs/BENCH_R3.md),
-    # not lax.sort; PSRS's two keys-only sorts are its whole compute cost.
+    # PSRS's two keys-only full sorts are its whole compute cost.
     from ..ops.radix_sort import sort_full
 
     s = sort_full(local_keys.astype(KEY_DTYPE))
@@ -208,18 +167,12 @@ def _sample_sort_shard(local_keys, *, axis, capacity, reassembly="sort",
     recv = lax.all_to_all(send_keys, axis, 0, 0, tiled=False)
     k_iota = lax.broadcasted_iota(jnp.int32, (P_, capacity), 1)
     masked = jnp.where(k_iota < recv_count[:, None], recv, PAD_KEY)
-    if reassembly == "merge":
-        merged = _merge_reassembly(
-            masked, s, self_lo, self_hi, capacity=capacity,
-            b_out=merge_b_out,
-        )
-    else:
-        # Self-destined slice, masked in place (contiguous in the shard).
-        pos = jnp.arange(n, dtype=jnp.int32)
-        self_buf = jnp.where((pos >= self_lo) & (pos < self_hi), s, PAD_KEY)
-        merged = sort_full(
-            jnp.concatenate([masked.reshape(-1), self_buf])
-        )  # pads (max key) sort last
+    # Self-destined slice, masked in place (contiguous in the shard).
+    pos = jnp.arange(n, dtype=jnp.int32)
+    self_buf = jnp.where((pos >= self_lo) & (pos < self_hi), s, PAD_KEY)
+    merged = sort_full(
+        jnp.concatenate([masked.reshape(-1), self_buf])
+    )  # pads (max key) sort last
     total = recv_count.sum().astype(jnp.int32) + (self_hi - self_lo)
     return merged, total[None], lax.psum(overflowed.astype(jnp.int32), axis)
 
@@ -231,7 +184,6 @@ def build_sample_sort(
     capacity_factor: float = 1.5,
     axis: str = KEY_AXIS,
     reassembly: str = "sort",
-    merge_b_out: int | None = None,
 ):
     """Compile-ready distributed sample sort over ``axis``.
 
@@ -241,32 +193,17 @@ def build_sample_sort(
     padding and the bypassed self slice), shard_counts (P,) gives each
     chip's valid prefix length.
 
-    ``reassembly``: "sort" (default — one sort_full over the received
-    buffer) or "merge" (flag-gated presorted-runs lever: merge levels only
-    over the already-sorted received segments, see
-    :func:`_merge_reassembly`).  ``merge_b_out`` overrides the merge
-    levels' output-block size (tests use tiny geometries).
+    ``reassembly``: "sort", the only one — one sort_full over the received
+    buffer.  The name of the removed merge-network reassembly raises.
     """
-    if reassembly not in ("sort", "merge"):
-        raise ValueError(
-            f"reassembly must be 'sort' or 'merge', got {reassembly!r}"
-        )
+    check_reassembly(reassembly)
     nchips = mesh.shape[axis]
     capacity = default_pair_capacity(n_local, nchips, capacity_factor)
-
-    # check_vma=False: the local sorts dispatch to the Pallas merge engine
-    # at production shard sizes, and pallas_call out_shapes carry no
-    # varying-mesh-axes metadata (same caveat as exchange="rdma",
-    # rdma_exchange.py docstring).
     fn = shard_map(
-        lambda k: _sample_sort_shard(
-            k, axis=axis, capacity=capacity, reassembly=reassembly,
-            merge_b_out=merge_b_out,
-        ),
+        lambda k: _sample_sort_shard(k, axis=axis, capacity=capacity),
         mesh=mesh,
         in_specs=P(axis),
         out_specs=(P(axis), P(axis), P()),
-        check_vma=False,
     )
     return jax.jit(fn), capacity
 
@@ -284,10 +221,9 @@ def _sample_sort_kv_shard(local_keys, local_vals, *, axis, capacity):
     n = local_keys.shape[0]
     W = local_vals.shape[1]
 
-    # Narrow payloads ride the sort as extra operands (XLA sort moves rows
-    # at multi-G/s; a permutation gather runs at ~100M elem/s).  Wide
-    # payloads fall back to the gather: compile time grows steeply with
-    # sort operand count (measured: 16 lanes -> 5+ min compiles).
+    # Narrow payloads ride the sort as extra operands; wide payloads are
+    # moved by a permutation gather (sort compile time grows with operand
+    # count).
     if 0 < W <= MAX_SORT_LANES:
         lanes = tuple(local_vals[:, w] for w in range(W))
         sorted_ops = lax.sort(
@@ -592,7 +528,6 @@ def build_sample_sort_64(
         mesh=mesh,
         in_specs=(P(axis), P(axis)),
         out_specs=(P(axis), P(axis), P(axis), P()),
-        check_vma=False,
     )
     return jax.jit(fn), capacity
 
@@ -748,7 +683,6 @@ def build_sample_sort_kv64(
         mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis)),
         out_specs=(P(axis), P(axis), P(axis), P(axis), P()),
-        check_vma=False,
     )
     return jax.jit(fn), capacity
 
@@ -948,7 +882,6 @@ def sort_distributed_sample(
     capacity_factor: float = 1.5,
     fallback: bool = True,
     reassembly: str = "sort",
-    merge_b_out: int | None = None,
 ) -> np.ndarray:
     """Host-facing distributed sample sort: pads, shards, runs PSRS,
     linearizes the ragged sorted shards exactly.
@@ -971,7 +904,7 @@ def sort_distributed_sample(
         out = sort_distributed_sample(
             encode_ordered_np(keys), mesh=mesh,
             capacity_factor=capacity_factor, fallback=fallback,
-            reassembly=reassembly, merge_b_out=merge_b_out,
+            reassembly=reassembly,
         )
         return decode_ordered_np(out, keys.dtype)
     mesh = mesh or key_mesh()
@@ -986,7 +919,7 @@ def sort_distributed_sample(
     dev = jax.device_put(padded, NamedSharding(mesh, P(KEY_AXIS)))
     fn, capacity = build_sample_sort(
         mesh, n_local, capacity_factor=capacity_factor,
-        reassembly=reassembly, merge_b_out=merge_b_out,
+        reassembly=reassembly,
     )
     shards, counts, overflow = fn(dev)
     if int(overflow) > 0:

@@ -23,6 +23,8 @@ import json
 import os
 import sys
 
+from .serverless import MOUNT_ENV
+
 
 def _handle(event: dict, mount: str, profile_dir: str | None) -> dict:
     profiler = None
@@ -58,12 +60,12 @@ def _handle(event: dict, mount: str, profile_dir: str | None) -> dict:
 
 def main() -> int:
     serve = "--serve" in sys.argv[1:]
-    mount = os.environ.get("GRS_TPU_MOUNT")
+    mount = os.environ.get(MOUNT_ENV)
     # Errors are in-band ({success: false} on stdout, exit 0) for EVERY
     # validation path: invoke_subprocess only surfaces stderr on a nonzero
     # exit, so exiting 1 after printing JSON would discard the message.
     if not mount:
-        print(json.dumps({"success": False, "err": "GRS_TPU_MOUNT not set"}),
+        print(json.dumps({"success": False, "err": f"{MOUNT_ENV} not set"}),
               flush=True)
         return 0
     profile_dir = os.environ.get("GRS_PROFILE_DIR")

@@ -12,8 +12,8 @@ Reference analogs:
     localTest/tests.cpp:38-86, extended to reproduce the *exact* boundary
     contract of SortState::GetBoundaries (sort.cu:367-394), quirks included.
 
-All functions are numpy-only so they can validate both the JAX/XLA and the
-Pallas paths as well as the native CPU oracle against one another.
+All functions are numpy-only so they can validate the JAX/XLA paths and
+the native CPU oracle against one another.
 """
 
 from __future__ import annotations
@@ -120,7 +120,7 @@ def boundaries_oracle(
 
 
 def true_bucket_counts(keys: np.ndarray, offset: int, width: int) -> np.ndarray:
-    """Exact per-digit counts (histogram), the TPU-native bucket metadata
+    """Exact per-digit counts (histogram), the bucket metadata
     that replaces boundary scans in the distributed path."""
     d = extract_digits(np.asarray(keys, dtype=np.uint32), offset, width)
     return np.bincount(d, minlength=1 << width).astype(np.int64)

@@ -35,7 +35,7 @@ class SortConfig:
     width: int = 8
     # Storage-plane worker count (reference hard-codes 2, distrib.go:107).
     nworker: int = 2
-    # Single-chip kernel strategy: auto | xla | pallas.
+    # Single-chip kernel strategy: auto | xla.
     strategy: str = "auto"
     # Mesh-path bucket exchange: auto | alltoall | gather.
     exchange: str = "auto"
@@ -76,12 +76,11 @@ class SortConfig:
             raise ValueError(f"width {self.width} must divide 32")
         if self.nworker < 1:
             raise ValueError(f"nworker must be >= 1, got {self.nworker}")
-        from ..ops import radix_sort as _rs  # canonical list; no drift
+        from ..ops.radix_sort import check_strategy
+        from ..parallel.distributed import check_exchange
 
-        if self.strategy not in _rs._VALID:
-            raise ValueError(f"unknown strategy {self.strategy!r}")
-        if self.exchange not in ("auto", "alltoall", "overflow", "gather", "rdma"):
-            raise ValueError(f"unknown exchange {self.exchange!r}")
+        check_strategy(self.strategy)
+        check_exchange(self.exchange)
         if self.backend not in ("mem", "file", "device"):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.worker not in ("local", "subprocess", "pool"):

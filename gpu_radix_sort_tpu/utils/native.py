@@ -6,7 +6,7 @@ degrades gracefully to a pure-numpy fallback in the caller when the native
 library is unavailable.  Reference analog: the Go/cgo and Python/ctypes
 bindings both dlopen libsort.so (benchmark/pkg/sort/libsort.go:24,
 faasTest/pylibsort/__init__.py:13-20); here the native library carries only
-host-side work (keygen, CPU oracles) since device compute is Pallas/XLA.
+host-side work (keygen, CPU oracles) since device compute is XLA.
 """
 
 from __future__ import annotations

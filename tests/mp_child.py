@@ -4,7 +4,7 @@ Run by tests/test_multiprocess.py in TWO OS processes, each owning 4
 virtual CPU devices (XLA_FLAGS=--xla_force_host_platform_device_count=4),
 joined into one 8-device runtime by ``jax.distributed`` — the collective
 plane crossing a REAL process boundary, the analog of the reference's
-FaaS subprocess boundary (/root/reference/benchmark/pkg/faas/invoke.go:118-171),
+FaaS subprocess boundary (reference benchmark/pkg/faas/invoke.go:118-171),
 which the storage plane already crosses (parallel/serverless.py) but the
 mesh collectives never had (VERDICT r4 missing item 2).
 

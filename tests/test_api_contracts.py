@@ -13,10 +13,10 @@ from gpu_radix_sort_tpu.data.interface import PartRef
 
 def test_sort_full_explicit_pallas_radix_raises():
     """An explicit strategy request must never silently run a different
-    engine (mirror of sort_by_digits' explicit-request contract)."""
+    engine: the removed kernel's name raises, naming the removal."""
     from gpu_radix_sort_tpu.ops.radix_sort import sort_full
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="removed"):
         sort_full(np.arange(1024, dtype=np.uint32), strategy="pallas_radix")
 
 
@@ -117,7 +117,7 @@ def test_distributed_width_32_rejected():
 
 def test_sample_pipeline_accepts_auto_exchange():
     """exchange='auto' is sort_distributed's documented default; sweeping
-    algorithms with a common exchange='auto' must not raise (ADVICE r2)."""
+    algorithms with a common exchange='auto' must not raise."""
     from gpu_radix_sort_tpu.models.pipelines import DistributedSortPipeline
 
     fn, (example,) = DistributedSortPipeline(

@@ -102,85 +102,6 @@ def test_nondivisible_sizes_padded():
         np.testing.assert_array_equal(out, np.sort(keys))
 
 
-@pytest.mark.parametrize("dist", ["uniform", "dupes", "sorted"])
-def test_rdma_exchange_round_exact(dist):
-    """Ragged RDMA exchange (Pallas remote DMA, interpret mode on the
-    virtual mesh): one digit round must equal the stable digit oracle —
-    and agree with the collective exchanges — under skew too."""
-    from gpu_radix_sort_tpu.parallel.rdma_exchange import exchange_round_rdma
-
-    mesh = _mesh()
-    n = 1 << 13
-    rng = np.random.default_rng(5)
-    if dist == "uniform":
-        keys = Pcg32().fill(n)
-    elif dist == "dupes":
-        keys = rng.integers(0, 4, size=n).astype(np.uint32)
-    else:
-        keys = np.sort(Pcg32().fill(n))
-    dev = jax.device_put(keys, NamedSharding(mesh, P("x")))
-
-    def round_(local):
-        out, ovf = exchange_round_rdma(local, 8, 8, "x", strategy="xla")
-        return out, jax.lax.psum(ovf.astype(jnp.int32), "x")
-
-    # check_vma=False: interpret-mode pallas drops varying-axis metadata on
-    # scalar-prefetch operands (prototype caveat, rdma_exchange.py docstring)
-    fn = jax.shard_map(
-        round_, mesh=mesh, in_specs=P("x"), out_specs=(P("x"), P()),
-        check_vma=False,
-    )
-    got, ovf = jax.jit(fn)(dev)
-    assert int(np.asarray(ovf)[0] if np.ndim(ovf) else ovf) == 0
-    digits = (keys >> 8) & 0xFF
-    want = keys[np.argsort(digits, kind="stable")]
-    np.testing.assert_array_equal(np.asarray(jax.device_get(got)), want)
-
-
-@pytest.mark.parametrize("width,n", [(8, 1111), (8, 1 << 13), (16, 1 << 13)])
-def test_rdma_full_sort_exact(width, n):
-    """Full LSD sort through exchange='rdma' (first-class option): exact
-    vs the CPU oracle, including the padded non-divisible size and the
-    width-16 (65536-bin) metadata path."""
-    keys = Pcg32().fill(n)
-    out = distributed.sort_distributed(
-        keys, mesh=_mesh(), width=width, exchange="rdma", strategy="xla"
-    )
-    np.testing.assert_array_equal(out, np.sort(keys))
-
-
-def test_rdma_exchange_race_free():
-    """Run one skewed RDMA round under the Mosaic interpreter's
-    vector-clock race detector: a checked proof that the counts-derived
-    receive layout is write-disjoint across senders (beyond the
-    reference, whose concurrency safety is by construction — SURVEY §5).
-    A race raises/aborts inside the interpreter; exactness is asserted on
-    top."""
-    from gpu_radix_sort_tpu.parallel.rdma_exchange import exchange_round_rdma
-
-    mesh = _mesh()
-    n = 1 << 13
-    rng = np.random.default_rng(11)
-    # skewed: digits concentrated so per-pair chunk counts are asymmetric
-    keys = (rng.zipf(1.3, size=n) % (1 << 16)).astype(np.uint32) << 8
-    dev = jax.device_put(keys, NamedSharding(mesh, P("x")))
-
-    def round_(local):
-        out, ovf = exchange_round_rdma(
-            local, 8, 8, "x", strategy="xla", detect_races=True
-        )
-        return out, jax.lax.psum(ovf.astype(jnp.int32), "x")
-
-    fn = jax.shard_map(
-        round_, mesh=mesh, in_specs=P("x"), out_specs=(P("x"), P()),
-        check_vma=False,
-    )
-    got, _ = jax.jit(fn)(dev)
-    digits = (keys >> 8) & 0xFF
-    want = keys[np.argsort(digits, kind="stable")]
-    np.testing.assert_array_equal(np.asarray(jax.device_get(got)), want)
-
-
 def test_overflow_exchange_skew_detected():
     """All-equal keys: every chip's shard targets one peer; the two-pass
     exchange must flag overflow (explicit), and auto mode must still sort
@@ -286,114 +207,15 @@ def test_zipf_skew_alltoall_or_explicit_overflow():
 
 
 # ---------------------------------------------------------------------------
-# Overlapped RDMA exchange (parallel/rdma_overlap.py)
-#
-# P=4 sub-mesh on purpose: at P=8 this box's CPU client execution pool is
-# exactly saturated by the 8 shard programs, and the overlap kernel's
-# heavier ordered-callback setup (two ANY-space outputs + VMEM scratch)
-# deadlocks the Mosaic interpreter's buffer-init materialization (the
-# nproc=1 starvation documented in docs/PERF_NOTES.md round-3 addendum).
-# P=4 leaves pool threads free and executes deterministically; the
-# exchange itself is P-generic (same schedule math as exchange='rdma',
-# which IS tested at P=8).
-# ---------------------------------------------------------------------------
-
-def _mesh4():
-    return key_mesh(jax.devices("cpu")[:4])
-
-
-@pytest.mark.overlap
-@pytest.mark.parametrize("width,n", [(4, 1 << 14), (8, 1111), (8, 1 << 14)])
-def test_rdma_overlap_full_sort_exact(width, n):
-    """Full LSD sort through exchange='rdma_overlap': the in-kernel
-    per-group composite-key sort + overlapped sends compose to the same
-    stable LSD as every other exchange (padded non-divisible size too)."""
-    keys = Pcg32().fill(n)
-    out = distributed.sort_distributed(
-        keys, mesh=_mesh4(), width=width, exchange="rdma_overlap"
-    )
-    np.testing.assert_array_equal(out, np.sort(keys))
-
-
-@pytest.mark.overlap
-def test_rdma_overlap_round_stable_and_race_free():
-    """One skewed width-8 round under the Mosaic interpreter's vector-clock
-    race detector: per-group sends from pipelined grid steps must still be
-    write-disjoint in every receiver.  Exactness asserts the (src, group,
-    rank) receive-layout stability argument, vs the numpy stable oracle."""
-    from gpu_radix_sort_tpu.parallel.rdma_overlap import (
-        exchange_round_rdma_overlapped,
-    )
-
-    mesh = _mesh4()
-    n = 1 << 17  # 16 groups of 2048 per chip at tile=2048 (P=4)
-    rng = np.random.default_rng(5)
-    keys = (rng.zipf(1.4, size=n) % (1 << 16)).astype(np.uint32) << 8
-    dev = jax.device_put(keys, NamedSharding(mesh, P("x")))
-
-    def round_(local):
-        out, _ = exchange_round_rdma_overlapped(
-            local, 8, 8, "x", tile=2048, detect_races=True
-        )
-        return out
-
-    fn = jax.shard_map(
-        round_, mesh=mesh, in_specs=P("x"), out_specs=P("x"),
-        check_vma=False,
-    )
-    got = np.asarray(jax.device_get(jax.jit(fn)(dev)))
-    digits = (keys >> 8) & 0xFF
-    want = keys[np.argsort(digits, kind="stable")]
-    np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.overlap
-def test_rdma_overlap_multi_group_full_sort():
-    """Full LSD with G=4 groups per chip (overlap_tile forces the grid):
-    cross-group stability is positional ((src, group)-major layout), so
-    the composed sort must still be exact."""
-    mesh = _mesh4()
-    n = 1 << 14  # n_local = 4096 -> G=4 at tile=1024 (P=4)
-    keys = Pcg32().fill(n)
-    fn = distributed.build_distributed_sort(
-        mesh, n // 4, width=8, exchange="rdma_overlap", overlap_tile=1024
-    )
-    dev = jax.device_put(keys, NamedSharding(mesh, P("x")))
-    out, ovf = fn(dev)
-    assert int(ovf) == 0
-    np.testing.assert_array_equal(
-        np.asarray(jax.device_get(out)), np.sort(keys)
-    )
-
-
-def test_rdma_overlap_all_equal_keys():
-    """Degenerate skew: every element lands on one destination chip; the
-    ragged schedule has zero-chunk pairs everywhere else."""
-    n = 1 << 14
-    keys = np.full(n, 0xDEADBEEF, dtype=np.uint32)
-    out = distributed.sort_distributed(
-        keys, mesh=_mesh4(), width=8, exchange="rdma_overlap"
-    )
-    np.testing.assert_array_equal(out, keys)
-
-
-def test_rdma_overlap_rejects_wide_digits():
-    with pytest.raises(ValueError, match="width"):
-        distributed.build_distributed_sort(
-            _mesh4(), 1 << 11, width=16, exchange="rdma_overlap"
-        )
-
-
-# ---------------------------------------------------------------------------
 # Fused round loop (reassembly + next local sort = one rotated-value sort)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("exchange", ["alltoall", "overflow", "rdma"])
+@pytest.mark.parametrize("exchange", ["alltoall", "overflow"])
 def test_fused_rounds_bit_identical(exchange):
     """The fused LSD loop (default for width<=8) must produce bit-identical
     output to the unfused loop for every eligible exchange."""
-    mesh = _mesh4() if exchange == "rdma" else _mesh()
-    nchips = 4 if exchange == "rdma" else 8
+    mesh = _mesh()
+    nchips = 8
     n = 1 << 13
     keys = Pcg32(31).fill(n)
     dev = jax.device_put(keys, NamedSharding(mesh, P("x")))
@@ -434,25 +256,6 @@ def test_fused_rounds_rejects_bad_combo():
         distributed.build_distributed_sort(
             _mesh(), 1 << 10, width=8, exchange="gather", fuse_rounds=True
         )
-    with pytest.raises(ValueError, match="pallas_radix"):
-        distributed.build_distributed_sort(
-            _mesh(), 1 << 10, width=8, exchange="alltoall",
-            strategy="pallas_radix", fuse_rounds=True,
-        )
-
-
-def test_strategy_pallas_radix_defaults_to_unfused():
-    """strategy='pallas_radix' names the DIGIT-sort engine: the fused
-    loop's keys-only full sorts cannot honor it, so auto fusing must back
-    off to the unfused loop (which routes sort_by_digits) instead of
-    crashing at trace time (round-3 regression)."""
-    n = 1 << 13
-    keys = Pcg32(13).fill(n)
-    out = distributed.sort_distributed(
-        keys, mesh=_mesh(), width=8, exchange="alltoall",
-        strategy="pallas_radix",
-    )
-    np.testing.assert_array_equal(out, np.sort(keys))
 
 
 def test_fused_rounds_width16():

@@ -96,17 +96,16 @@ def test_paths_agree_with_oracle(case):
     "case", list(_cases(8, seed=123)), ids=lambda c: f"{c[0]}-{c[1]}"
 )
 def test_radix_engine_fuzz(case):
-    """The Pallas radix engine (interpret mode) against the stable oracle,
-    randomized offsets/widths per case."""
+    """The stable digit sort (sort_by_digits) against the stable oracle,
+    randomized offsets/widths per case — the seeds that fuzzed the removed
+    binning kernel."""
     i, kind, keys = case
     rng = np.random.default_rng(1000 + i)
     width = int(rng.choice([2, 3, 4]))
     offset = int(rng.integers(0, 32 - width))
-    from gpu_radix_sort_tpu.ops import pallas_radix as pr
+    from gpu_radix_sort_tpu.ops.radix_sort import sort_by_digits
 
-    got = np.asarray(
-        pr.binning_pass(keys, offset, width, tile=4096, b_out=2048)
-    )
+    got = np.asarray(sort_by_digits(keys, offset, width))
     d = (keys >> np.uint32(offset)) & np.uint32((1 << width) - 1)
     np.testing.assert_array_equal(
         got, keys[np.argsort(d, kind="stable")],

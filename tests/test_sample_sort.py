@@ -369,10 +369,9 @@ def test_sort_kv_distributed_64_rejects():
 
 @pytest.mark.parametrize("case", ["random", "dupes", "presorted"])
 def test_sample_sort_merge_reassembly(case):
-    """Flag-gated presorted-runs reassembly (VERDICT r3 item 7b): merge
-    levels only over the received segments + rotated self slice; exact on
-    the virtual mesh (the perf measurement is deferred to real multi-chip
-    hardware)."""
+    """The cases of the removed merge-network reassembly, on the PSRS
+    reassembly that remains (one sort over the received buffer plus the
+    self slice): exact with no overflow fallback."""
     n = 8 * 2048
     if case == "random":
         keys = Pcg32(state=17).fill(n)
@@ -384,22 +383,21 @@ def test_sample_sort_merge_reassembly(case):
     else:
         keys = np.sort(Pcg32(state=23).fill(n))
     out = sample_sort.sort_distributed_sample(
-        keys, mesh=_mesh(), reassembly="merge", merge_b_out=512,
-        fallback=False,
+        keys, mesh=_mesh(), fallback=False,
     )
     np.testing.assert_array_equal(out, np.sort(keys))
 
 
 def test_sample_sort_merge_reassembly_odd_n():
-    """Host padding (n not divisible by P) flows through the merge
-    reassembly's PAD handling."""
+    """Host padding (n not divisible by P) flows through the reassembly's
+    PAD handling."""
     keys = Pcg32(state=29).fill(8 * 2048 - 777)
-    out = sample_sort.sort_distributed_sample(
-        keys, mesh=_mesh(), reassembly="merge", merge_b_out=512
-    )
+    out = sample_sort.sort_distributed_sample(keys, mesh=_mesh())
     np.testing.assert_array_equal(out, np.sort(keys))
 
 
 def test_sample_sort_rejects_bad_reassembly():
     with pytest.raises(ValueError, match="reassembly"):
         sample_sort.build_sample_sort(_mesh(), 2048, reassembly="bogus")
+    with pytest.raises(ValueError, match="removed"):
+        sample_sort.build_sample_sort(_mesh(), 2048, reassembly="merge")

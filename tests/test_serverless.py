@@ -229,11 +229,11 @@ def test_worker_pool_recovers_capacity_after_spawn_failure(mount, monkeypatch):
         real_spawn = pool._spawn
         calls = {"n": 0}
 
-        def flaky_spawn():
+        def flaky_spawn(card):
             if calls["n"] == 0:
                 calls["n"] += 1
                 raise RuntimeError("injected spawn failure")
-            return real_spawn()
+            return real_spawn(card)
 
         monkeypatch.setattr(pool, "_spawn", flaky_spawn)
         with pytest.raises(RuntimeError, match="injected spawn failure"):

@@ -242,15 +242,15 @@ def test_sort_key_value_by_digits_wide_payload():
 
 def test_kv_digits_pallas_radix_rejects_wide_payload():
     """An explicit strategy='pallas_radix' must not silently run the XLA
-    path when the payload is not a single 4-byte lane (round-3
-    regression; mirrors sort_full's explicit-strategy contract)."""
+    path: the removed kernel's name raises for any payload (mirrors
+    sort_full's explicit-strategy contract)."""
     import pytest
 
     from gpu_radix_sort_tpu.ops.radix_sort import sort_key_value_by_digits
 
     keys = Pcg32(3).fill(4096)
     wide = np.zeros((4096, 4), dtype=np.uint32)
-    with pytest.raises(NotImplementedError, match="pallas_radix"):
+    with pytest.raises(ValueError, match="pallas_radix"):
         sort_key_value_by_digits(keys, wide, 0, 4, strategy="pallas_radix")
 
 

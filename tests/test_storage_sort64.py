@@ -2,7 +2,7 @@
 next-round item 6): 64/width LSD rounds over 8-byte order-encoded rows,
 parametric across mem/file/device factories and the subprocess worker
 (keyBits wire extension), checkpoint/resume included.  Beyond the
-reference's u32-only surface (/root/reference/libsort/libsort.h:19)."""
+reference's u32-only surface (reference libsort/libsort.h:19)."""
 
 import numpy as np
 import pytest
